@@ -2,7 +2,7 @@
 item 2): throughput of band_hold ON vs OFF at several hold (=hoist)
 factors, and the 40M community-AUC quality gate for the held config.
 
-Run on the real TPU: python experiments/band_hold_bench.py [perf|quality]
+Run on the GPU: python experiments/band_hold_bench.py [perf|quality]
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""BPR quality parity: ours (TPU) vs the C++ reference on a synthetic
+"""BPR quality parity: ours (JAX) vs the C++ reference on a synthetic
 implicit-feedback dataset shaped like MovieLens-1M (the real dataset is
 unavailable offline; BASELINE.md row "BPR AUC + recall@10").
 
@@ -8,7 +8,7 @@ Dataset: 6k users x 3k items, 60 latent taste clusters; each user draws
 matched sample budget, then are scored identically:
   - AUC: P(score(test item) > score(random unseen item)) per user
   - recall@10: fraction of test items in the user's top-10 unseen ranking
-Run: python experiments/bpr_parity.py  (real TPU + compiles the reference)
+Run: python experiments/bpr_parity.py  (GPU + compiles the reference)
 """
 
 from __future__ import annotations

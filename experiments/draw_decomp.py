@@ -1,8 +1,7 @@
 """Decompose the hoisted banded DRAW cost: RNG vs edge-row gather.
 
-PERF_NOTES round-3 roofline: the hoisted draw costs ~700 us per
-32768-sample micro-step (21 ns/sample) and is now 62% of the banded
-step. This experiment separates its two candidate costs on real TPU:
+The hoisted draw is a large share of the banded step. This experiment
+separates its two candidate costs on the GPU:
 
   full        the production hoisted draw (baseline)
   rng         ONLY the threefry uniforms the draw consumes
@@ -12,7 +11,7 @@ step. This experiment separates its two candidate costs on real TPU:
   gather_neg  gather + the negative-table 8-B row gathers
   full_rbg    the production draw with an rbg key
 
-Run: python experiments/draw_decomp.py  (real TPU, ~5 min of compiles)
+Run: python experiments/draw_decomp.py  (GPU)
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Measure the mega-draw hoist win for the rec and walk families on the
-real TPU (50k bench graph): hoist=1 vs 8 vs 32 for BPR, and hoist=1 vs 8
+the GPU (50k bench graph): hoist=1 vs 8 vs 32 for BPR, and hoist=1 vs 8
 for DeepWalk. Decides each family's default.
 
 Run: python experiments/hoist_breadth.py

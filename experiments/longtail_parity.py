@@ -19,7 +19,7 @@ gates live elsewhere: absolute-threshold eval-hook tests
 (tests/test_eval_hooks.py, tests/test_kg_models.py) and the
 reference-semantics head-to-head in experiments/sasrec_eval.py.
 
-Run: python experiments/longtail_parity.py [model...]   (real TPU)
+Run: python experiments/longtail_parity.py [model...]   (GPU)
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Wall-clock breadth check: train several model families end-to-end on
-the 50k-vertex bench graph on the real TPU at reference-default-ish
+the 50k-vertex bench graph on the GPU at reference-default-ish
 configs, and report wall seconds + effective update rate. One process so
 compiles are amortized/cached."""
 

@@ -1,7 +1,7 @@
 """Re-promote SkewOPT's shared-negatives arm + close WARP's residual
 (VERDICT r4 item 6).
 
-Round-3 demoted SkewOPT's 5.4 M/s shared-pool arm on a recall deficit
+Round-3 demoted SkewOPT's shared-pool arm on a recall deficit
 (0.9106 vs 0.9225) that round 4 root-caused to UNDIRECTED loading (the
 reference rec CLIs hardcode directed, cli/skewopt.cpp:69). This
 retests both SkewOPT arms and WARP under DIRECTED loading at >=3

@@ -4,7 +4,7 @@ Hypothesis: random-row gathers/scatters dominate the step; hub vertices
 are touched most often (draws are degree-weighted), so packing hot rows
 into a contiguous low-index region should improve HBM locality. Tests
 LINE o2 on the 1.1M-vertex synthetic graph with identity vs
-degree-sorted labelings. Run on the real TPU.
+degree-sorted labelings. Run on the GPU.
 """
 
 from __future__ import annotations

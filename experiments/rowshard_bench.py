@@ -2,7 +2,7 @@
 deltas) vs rows (row-sharded tables, GSPMD collectives) vs single-device,
 on the virtual 8-device CPU mesh.
 
-CPU-mesh timings are not ICI-representative, but they expose the traffic
+CPU-mesh timings are not representative of NVLink, but they expose the traffic
 scaling: DP's per-step psum moves the whole (N, D) table delta, so its
 step time grows with N; rows moves O(batch * D) rows. Run:
 

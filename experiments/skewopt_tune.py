@@ -1,7 +1,7 @@
 """Root-cause SkewOPT's recall@10 deficit (VERDICT r3 item 6).
 
 Round-3 record: per-sample default (batch 8192) reads recall ~0.01
-under the reference across seeds (0.9134 vs 0.9229); the 5.4 M/s
+under the reference across seeds (0.9134 vs 0.9229); the
 shared-negs arm read 0.9106 and was demoted. BPR at the same batch
 matches -- so the suspect is SkewOPT-specific interaction between the
 (xi, omega, eta) odd-power gradient and batched staleness at a batch
@@ -13,7 +13,7 @@ Arms (same bpr_parity dataset/eval, 20M samples):
   reference (compiled, all cores) x N seeds
 
 Run: python experiments/skewopt_tune.py [seeds=3]
-(CPU jax works -- the model is small; re-confirm winners on TPU.)
+(CPU jax works -- the model is small; re-confirm winners on the GPU.)
 """
 
 from __future__ import annotations

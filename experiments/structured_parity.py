@@ -1,7 +1,7 @@
 """Structure-shaped head-to-heads for the models whose round-2 parity
 rows were chance-vs-chance (VERDICT r2 Weak #5): each model gets a
 dataset shaped for what it actually learns, and a probe that can see it.
-Both sides (ours on TPU, compiled C++ reference) read the SAME files and
+Both sides (ours on the GPU, compiled C++ reference) read the SAME files and
 are scored by the SAME function.
 
   app      asymmetric proximity: probe = dot(vertex[u], context[v]) on

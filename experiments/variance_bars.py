@@ -5,14 +5,14 @@
   (b) the designated micro-F1 (softmax probe on o1+o2 concat, and
       o2-only) at the same 40M budget
 
-Ours runs the production default config per seed on the TPU; the
+Ours runs the production default config per seed on the GPU; the
 reference arms run the compiled CLI with -threads all (its RNG is
 time-seeded, so consecutive runs ARE independent seeds,
 src/random.cpp:5-13).
 
-Run on real TPU:  python experiments/variance_bars.py [n_seeds]
-(reference arms take ~2.5 min each at ~0.28 M samples/s all-core; six
-o1/o2 pairs + three gate arms ~ 25 min of host CPU.)
+Run on the GPU:  python experiments/variance_bars.py [n_seeds]
+(the reference arms run on all host cores: six o1/o2 pairs + three
+gate arms.)
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ cli/app.cpp (all in the default target list, cli/Makefile:3).
 Round-1 recorded deepwalk 0.9966 vs ref 0.9958 from ad-hoc verify work;
 this script makes that reproducible and extends it to walklets/app.
 
-Run: python experiments/walk_parity.py [deepwalk walklets app]  (real TPU)
+Run: python experiments/walk_parity.py [deepwalk walklets app]  (GPU)
 """
 
 from __future__ import annotations

@@ -8,15 +8,14 @@ graph (bench.make_youtube_graph) at 40M, 120M AND 400M samples:
     probe on the CONCAT of order-1 and order-2 embeddings, plus the
     o2-only column)
 
-Reference arms (produced by /tmp/ref_yt_runs.sh, ~0.28 M samples/s on
-all cores):  /tmp/ref_yt_o2_120M.txt  /tmp/ref_yt_o2_400M.txt
+Reference arms (produced by /tmp/ref_yt_runs.sh on all host cores):
+             /tmp/ref_yt_o2_120M.txt  /tmp/ref_yt_o2_400M.txt
              /tmp/ref_yt_o1_120M.txt  (/tmp/yt_ref_line.txt = o2 40M)
 
-Ours: the production banded config at the same budgets. Config
-selectable to also measure the fused-kernel arm at identical budgets
-(VERDICT Weak #7: no extrapolation -- run the actual arm).
+Ours: the production banded config at the same budgets (the fused GPU
+kernel step where the card runs it).
 
-Run on real TPU:
+Run on the GPU:
   python experiments/yt_converged_parity.py ours 40 120 400   # o2 arms
   python experiments/yt_converged_parity.py o1 120            # o1 arm
   python experiments/yt_converged_parity.py ref               # score refs
@@ -144,12 +143,6 @@ def main():
     if "o1" in args:
         for b in budgets:
             train_ours(1, b)
-    if "fused" in args:
-        for b in budgets:
-            train_ours(2, b, use_pallas=True)
-    if "scatter" in args:
-        for b in budgets:
-            train_ours(2, b, use_pallas="scatter")
     if "microf1" in args:
         microf1()
 

@@ -1,7 +1,7 @@
 """Convergence vs shared-negative pool size at Youtube scale.
 
 Reference LINE uses 5 FRESH negatives per sample (~164k negative-row
-updates per 32768-sample step); our shared-negative MXU form uses one
+updates per 32768-sample step); our shared-negative matmul form uses one
 Ks-row pool per step with k_equiv scaling. At the 40M gate that made no
 difference (AUC 0.614 vs ref 0.611) but the converged-budget reference
 arms (o2 0.813@120M / 0.965@400M) sit above the round-2 curve

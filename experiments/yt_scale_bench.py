@@ -6,7 +6,7 @@ Graph: bench.make_youtube_graph -- the faithful power-law synthetic
 (gamma~2.2, 1.1M vertices, ~2.94M links, 100 planted communities).
 
 Run: python experiments/yt_scale_bench.py [perf|quality|ref]...
-(real TPU; default = perf quality)
+(GPU; default = perf quality)
 """
 
 from __future__ import annotations

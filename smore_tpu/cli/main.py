@@ -40,11 +40,11 @@ def _base_parser(name: str, walk: bool = False) -> argparse.ArgumentParser:
     p.add_argument("-undirected", type=int, default=1)
     p.add_argument("-alpha", type=float, default=0.025)
     p.add_argument("-threads", type=int, default=1,
-                   help="accepted for compatibility; TPU path ignores it")
+                   help="accepted for compatibility; the device path ignores it")
     p.add_argument("-batch", type=int, default=None,
-                   help="TPU batch size override")
+                   help="batch size override")
     p.add_argument("-checkpoint", default=None,
-                   help="orbax checkpoint dir: save the full training "
+                   help="checkpoint dir: save the full training "
                         "state periodically and resume from it if present")
     p.add_argument("-checkpoint_every", type=int, default=1,
                    help="checkpoint interval: jit calls for TrainDriver "
@@ -459,9 +459,9 @@ def _kg_model(name, cls_name, extra=None):
         p.add_argument("-alpha", type=float, default=0.01)
         p.add_argument("-margin", type=float, default=1.0)
         p.add_argument("-threads", type=int, default=1,
-                       help="accepted for compatibility; TPU path ignores it")
+                       help="accepted for compatibility; the device path ignores it")
         p.add_argument("-checkpoint", default=None,
-                       help="orbax checkpoint dir: save tables + PRNG "
+                       help="checkpoint dir: save tables + PRNG "
                             "chain every -checkpoint_every epochs and "
                             "resume from it if present")
         p.add_argument("-checkpoint_every", type=int, default=1)
@@ -539,7 +539,7 @@ def _seq_model(name, cls_name, extra=None):
                        help="negatives per position, summed "
                             "(sasrec.go:576-593)")
         p.add_argument("-threads", type=int, default=1,
-                       help="accepted for compatibility; TPU path ignores it")
+                       help="accepted for compatibility; the device path ignores it")
         p.add_argument("-eval_holdout", type=int, default=0,
                        help="1 = withhold each user's last item, train on "
                             "the prefix, and print recall@10 / NDCG@10 "
@@ -549,7 +549,7 @@ def _seq_model(name, cls_name, extra=None):
                             "reference's semantics, sasrec.go:553-593); "
                             "0 = full autodiff (default)")
         p.add_argument("-checkpoint", default=None,
-                       help="orbax checkpoint dir: save params + adam "
+                       help="checkpoint dir: save params + adam "
                             "state + PRNG chain every -checkpoint_every "
                             "epochs and resume from it if present")
         p.add_argument("-checkpoint_every", type=int, default=1)
@@ -613,7 +613,7 @@ def _cpr(argv):
                         "reference (cpr.go:181)")
     p.add_argument("-undirected", type=int, default=1)
     p.add_argument("-threads", type=int, default=1,
-                   help="accepted for compatibility; TPU path ignores it")
+                   help="accepted for compatibility; the device path ignores it")
     p.add_argument("-checkpoint", default=None)
     p.add_argument("-checkpoint_every", type=int, default=1)
     p.add_argument("-no_resume", action="store_true")
@@ -646,7 +646,7 @@ def _tpr(argv):
                    help="L2 regularization (cmd/tpr/main.go:21)")
     p.add_argument("-undirected", type=int, default=1)
     p.add_argument("-threads", type=int, default=1,
-                   help="accepted for compatibility; TPU path ignores it")
+                   help="accepted for compatibility; the device path ignores it")
     p.add_argument("-checkpoint", default=None)
     p.add_argument("-checkpoint_every", type=int, default=1)
     p.add_argument("-no_resume", action="store_true")
@@ -666,7 +666,7 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not argv or argv[0] in ("-h", "--help", "help"):
         names = ", ".join(sorted(_REGISTRY))
-        print("smore-tpu: TPU-native SMORe. Subcommands:\n  " + names)
+        print("smore-tpu: SMORe in JAX. Subcommands:\n  " + names)
         print("\nRun `smore <model>` with no flags for that model's options.")
         return 0
     cmd = argv[0]

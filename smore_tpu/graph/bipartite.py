@@ -5,7 +5,7 @@ item timestamp [features...]`` lines (:64-140); users and items interned
 SEPARATELY; interactions kept globally time-sorted plus per-user/item
 time-sorted lists (:187-206); time-window queries (:225-272).
 
-TPU layout: parallel arrays sorted by timestamp; per-user/item indices
+Device layout: parallel arrays sorted by timestamp; per-user/item indices
 as (indptr, order) permutations for window queries.
 """
 

@@ -6,7 +6,7 @@ neighbor lists indexed by type (:169-182), uniform typed-neighbor
 sampling (:207-219), and MetaPathWalk (:221-257): follow the type
 sequence cyclically, stop on type mismatch or missing typed neighbor.
 
-TPU layout: neighbors sorted by (src, dst_type) into one flat array;
+Device layout: neighbors sorted by (src, dst_type) into one flat array;
 (node, type) segments addressed via a (N*T+1,) indptr, so a typed
 neighbor draw is one uniform inside the segment.
 """

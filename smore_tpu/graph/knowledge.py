@@ -6,7 +6,7 @@ per-relation entity sets for corrupt-head/corrupt-tail negative sampling
 (:185-212). File format: ``head relation tail [weight]`` whitespace-split,
 weight defaults to 1.0.
 
-TPU layout: triples as parallel numpy arrays; the per-relation entity
+Device layout: triples as parallel numpy arrays; the per-relation entity
 pools flattened into (rel_indptr, rel_entities) segments so a corrupted
 entity is one uniform draw inside the relation's segment on device.
 """

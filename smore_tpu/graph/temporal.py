@@ -6,7 +6,7 @@ TemporalRandomWalk (:225-251): each step picks UNIFORMLY among out-edges
 with timestamp in (t_cur, t_cur + time_window], advancing t_cur to the
 chosen edge's timestamp; the walk stops when no edge qualifies.
 
-TPU layout: out-edges flattened to (indptr, dst, ts) with per-node
+Device layout: out-edges flattened to (indptr, dst, ts) with per-node
 timestamp-sorted segments; the in-window range [lo, hi) is found by two
 fixed-iteration binary searches, the draw is one uniform.
 """

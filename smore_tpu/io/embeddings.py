@@ -21,6 +21,9 @@ import numpy as np
 
 def save_embeddings(path: str, names: Sequence[str], table: np.ndarray) -> None:
     table = np.asarray(table)
+    # rows past the names are padding (a row-sharded table is padded to a
+    # multiple of the device count, models/base.py TrainDriver.train)
+    table = table[: len(names)]
     n, dim = table.shape
     assert n == len(names), f"{n} rows vs {len(names)} names"
     from smore_tpu.native import fastgraph

@@ -1,6 +1,6 @@
 """Model zoo: the union of the reference's 17 C++ models
 (/root/reference/src/model/) and 21 Go models
-(/root/reference/internal/models/), re-designed TPU-first.
+(/root/reference/internal/models/), re-designed for accelerators.
 
 All edge/walk models follow the reference protocol
 ``load_edge_list -> init(dim) -> train(...) -> save_weights(path)``.
@@ -24,9 +24,20 @@ from smore_tpu.models.line import LINE
 from smore_tpu.models.metapath2vec import Metapath2Vec
 from smore_tpu.models.node2vec import Node2Vec
 from smore_tpu.models.rec import BPR, MF, WARP, SkewOPT
-from smore_tpu.models.sasrec import GSASRec, RecDenoiser, SASRec
 from smore_tpu.models.sne import SNE
 from smore_tpu.models.walklets import Walklets
+
+# The SASRec family needs flax; import it on first use so every other model
+# (and the CLI) works where flax is not installed.
+_LAZY = {"GSASRec", "RecDenoiser", "SASRec"}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        from smore_tpu.models import sasrec
+
+        return getattr(sasrec, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 __all__ = [
     "APP", "BPR", "CPR", "CTDNE", "ComplEx", "DeepWalk", "ECO", "FINE",

@@ -14,7 +14,7 @@ Reference:
     (:101-120); BPR over enriched items with lambda L2; saves
     user/item/word tables.
 
-TPU adaptation (documented): the reference aggregates a user's FULL item
+Batched adaptation (documented): the reference aggregates a user's FULL item
 list / an item's FULL word list (ragged); here a fixed-size uniform
 sample of S neighbors estimates the mean so shapes stay static, and
 gradients come from jax.grad of the same loss (which also trains the

@@ -34,7 +34,7 @@ class DeepWalk(WalkSGNSBase):
         negative_samples: int = 5,
         alpha: float = 0.025,
         # batch_walks=128-256 -> 52-105k pair slots/step on a 40-step walk:
-        # large enough for the MXU, small enough that stale-snapshot
+        # large enough for the matrix units, small enough that stale-snapshot
         # collisions don't hurt (measured link-AUC 0.9956-0.9966 with
         # collision="sum", matching the C++ reference's 0.9958).
         batch_walks: int = 128,

@@ -8,7 +8,7 @@ Reference: /root/reference/internal/models/fastrp/fastrp.go --
   3. blocks [U_0 | U_1 | ... | U_L] concatenated, dim_per_iteration =
      dim // (iterations + 1) (:77-117); final rows L2-normalized (:225)
 
-TPU form: the aggregation is one edge-gather + segment-sum (a sparse
+Batched form: the aggregation is one edge-gather + segment-sum (a sparse
 matmul) per iteration -- all on device, no SGD anywhere.
 """
 

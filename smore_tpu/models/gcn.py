@@ -98,7 +98,7 @@ class GCN(PairModelBase):
 
             if Kp:
                 # ONE pool of Kp negative sets scored against the whole
-                # batch on the MXU (exactly expectation-preserving: the
+                # batch as one matmul (exactly expectation-preserving: the
                 # CBOW gradient is additive in negative sets) -- removes
                 # the K*S rows/sample that dominate the step
                 pool = neg_t.negative_field_sample(
@@ -290,7 +290,7 @@ class TEXTGCNdev(GCN):
             D = w_avg.shape[1]
             if Kp:
                 # ONE shared pool of field-1 events scored against both
-                # anchors on the MXU (sigmoid gradient is additive in
+                # anchors as one matmul (sigmoid gradient is additive in
                 # negatives -> exactly expectation-preserving at
                 # k_equiv/Kp scale)
                 scale = K / Kp
@@ -373,7 +373,7 @@ class TEXTGCNdev(GCN):
         steps_per_call: int = 64,
         collision: str = "sum",
         shared_negatives: int = 128,  # Kp-row shared event pool scored
-        # against both anchors on the MXU (exactly expectation-
+        # against both anchors as one matmul (exactly expectation-
         # preserving: additive sigmoid gradient); 0 = per-sample
         verbose: bool = True,
     ) -> None:

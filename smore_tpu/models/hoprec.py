@@ -10,7 +10,7 @@ cli/hoprec.cpp) -- Train (HBPR.cpp:63-131):
   - UpdateFBPRPair(vid, cid_w, nid, alpha/w, margin/w) on ONE table,
     margin-filtered BPR (skip when score diff > margin/w)
 
-TPU form: the chain is a fixed (B, walk_steps) walk (2 hops per level),
+Batched form: the chain is a fixed (B, walk_steps) walk (2 hops per level),
 field-matched negatives come from per-field alias tables
 (smore_tpu/sampling/fields.py), and all levels update in one fbpr_step
 with per-pair alpha/margin vectors. CLI defaults: dim=64 (typically 128

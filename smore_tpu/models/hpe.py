@@ -59,8 +59,8 @@ def build_walk_bank(tables, key, n_vertices: int, k: int,
     """Pre-draw k community-walk extensions per START vertex, ONCE.
 
     HPE's per-sample cost is dominated by the walk generation's
-    walk_steps-1 sequential dependent target-draws (PERF_NOTES round-3:
-    batch-insensitive 2.2-2.5 M samples/s). Walks depend only on the
+    walk_steps-1 sequential dependent target-draws (batch-insensitive on
+    the earlier build). Walks depend only on the
     graph, so they can be drawn up front (one batched device call) and
     REUSED: a training sample then fetches one pre-drawn (walk_steps-1,)
     extension row with a single gather. Per-walk law is exact (each bank
@@ -203,8 +203,8 @@ class HPE(PairModelBase):
         walk_bank: int = 16,  # pre-draw this many community-walk
         # extensions per start vertex ONCE (build_walk_bank) and reuse
         # them -- removes the walk_steps-1 sequential dependent
-        # alias-draw rounds that bound HPE at 2.2-2.5 M samples/s
-        # (PERF_NOTES round-3). Per-walk law exact; reuse gated by the
+        # alias-draw rounds that bound HPE's throughput. Per-walk law
+        # exact; reuse gated by the
         # bpr_parity HPE quality row. 0 = fresh walks every step.
         verbose: bool = True,
     ) -> None:

@@ -13,7 +13,7 @@ then a strictly chronological scan over interactions; for each event
   4. static tables EMA toward dynamic at 0.1*lr (:276-281)
 A projection RNN (input = dt/100) serves embedding projection (:108-119).
 
-TPU design: the chronological dependency is inherent, so the scan runs as
+Design: the chronological dependency is inherent, so the scan runs as
 ONE jitted lax.scan over the padded interaction array -- no Python per
 event. Evaluation hook EvaluatePredictions (jodie.go:356-399): pairwise
 accuracy pos > random-neg over the last <=1000 interactions.
@@ -149,7 +149,7 @@ class JODIE:
               bce_lr: float = None, verbose: bool = True,
               checkpoint: str = None, checkpoint_every: int = 1,
               resume: bool = True) -> None:
-        """checkpoint: orbax dir — static tables + RNN params + the final
+        """checkpoint: checkpoint dir — static tables + RNN params + the final
         dynamic tables + PRNG chain, saved every ``checkpoint_every``
         epochs; resume continues the exact trajectory (each epoch resets
         dynamics to the statics, jodie.go:230-296, so epoch granularity

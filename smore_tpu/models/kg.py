@@ -11,7 +11,7 @@ All three are margin-ranking models over corrupted triples:
           (margin + neg - pos) (complex.go:85-101,:241-252), entities
           renormalized to unit length after updates (:104-117)
 
-TPU design differences (documented, quality-gated):
+Design differences (documented, quality-gated):
   - gradients come from jax.grad of the same margin losses (the Go code
     hand-derives identical expressions, e.g. d||x||/dx = x/||x||)
   - the corrupted entity is a uniform draw from the reference's
@@ -198,7 +198,7 @@ class _KGBase:
         checkpoint_every: int = 1,
         resume: bool = True,
     ) -> None:
-        """checkpoint: orbax dir — entity/relation tables + PRNG chain
+        """checkpoint: checkpoint dir — entity/relation tables + PRNG chain
         saved every ``checkpoint_every`` epochs; with ``resume`` a
         same-``epochs`` restart continues the exact uninterrupted
         trajectory (the lr schedule is a pure function of the restored

@@ -12,7 +12,7 @@ Semantics preserved:
   - sample budget = sample_times * 1e6 edge samples; linear alpha decay
     to alpha*1e-4 (LINE.cpp:119-121,176-187).
 
-TPU design: source/context/negative draws and the fused SGNS update all
+Design: source/context/negative draws and the fused SGNS update all
 run inside one jitted lax.scan (see smore_tpu/ops/update.py); the tables
 are donated across calls so training is entirely on-device.
 """
@@ -41,10 +41,9 @@ from smore_tpu.ops.update import (
     sgns_step_shared,
 )
 
-# XLA random-row scatter-adds keep their small-table cost up to ~131k
-# rows and jump ~5x above ~262k (experiments/probes/band_probe.py); banded
-# stratified updates (sampling/banded.py) restore small-table cost at any
-# scale, so they engage automatically past the cliff.
+# Banded stratified updates (sampling/banded.py) engage automatically on
+# tables of at least this many rows. The value was tuned on another
+# accelerator and has not been re-measured on the H100.
 BANDED_AUTO_THRESHOLD = 262_144
 
 
@@ -77,11 +76,10 @@ class LINE(PairModelBase):
         collision: str = "sum",
         shared_negatives: int = 128,
         group: int = 1,
-        use_pallas: bool = False,
         hoist: int = 1,
     ):
         """shared_negatives > 0 (default): draw one pool of that many
-        negatives per step and run the MXU fast path (see
+        negatives per step and run the shared-pool fast path (see
         ops.update.sgns_shared_negs_step); 0 = strict per-sample negatives
         like the reference.
 
@@ -89,13 +87,12 @@ class LINE(PairModelBase):
         context samples (walk-style source reuse; same conditional context
         law and source marginal, verified at AUC parity on the bench
         graph) -- shrinks the source-side draw/gather/scatter by the group
-        factor. use_pallas: fused gradient kernel (TPU backend only).
+        factor.
 
         hoist > 1: draws for that many consecutive update batches run as
         ONE mega-draw before an inner scan (identical sampling law --
         draws are state-independent; SamplerTables.draw_edge_batches_
-        hoisted), amortizing per-row gather costs. 19.1 -> 27.8 M
-        samples/s on the 50k bench (PERF_NOTES.md). ``alpha`` then
+        hoisted), amortizing per-row gather costs. ``alpha`` then
         arrives as a (hoist,) vector from TrainDriver(micro_steps=hoist).
         Requires shared_negatives, group > 1 and the joint edge table."""
         order = self.order
@@ -103,8 +100,7 @@ class LINE(PairModelBase):
         if shared_negatives and hoist > 1:
             Ks = shared_negatives
             kw = dict(
-                k_equiv=negatives, collision=collision,
-                src_group=group, use_pallas=use_pallas,
+                k_equiv=negatives, collision=collision, src_group=group,
             )
 
             def update(st, x, a):
@@ -140,7 +136,7 @@ class LINE(PairModelBase):
                     src, pos, negs = tables.draw_edge_batch(key, batch, Ks)
                 kw = dict(
                     k_equiv=negatives, collision=collision,
-                    src_group=group if grouped else 1, use_pallas=use_pallas,
+                    src_group=group if grouped else 1,
                 )
                 if order == 1:
                     w, _, loss = sgns_shared_negs_step(
@@ -175,7 +171,7 @@ class LINE(PairModelBase):
         return step
 
     def _make_banded_step(self, batch, negatives, shared_negatives, group,
-                          hoist=1, pallas_scatter=False, fused=False):
+                          hoist=1):
         order = self.order
         Ks = shared_negatives
         band_size = self.banded_tables.band_size
@@ -184,9 +180,7 @@ class LINE(PairModelBase):
 
         def inner(state, x, alpha):
             sb, db, src, pos, negs = x
-            kw = dict(k_equiv=negatives, src_group=group,
-                      pallas_scatter=pallas_scatter,
-                      fused=fused and order == 2)
+            kw = dict(k_equiv=negatives, src_group=group)
             if order == 1:
                 w, _, loss = sgns_shared_negs_step_banded(
                     state["vertex"], state["vertex"], db, band_size,
@@ -214,117 +208,12 @@ class LINE(PairModelBase):
 
         return step
 
-    def _make_banded_multiblock_nb_step(self, batch, negatives,
-                                        shared_negatives, hoist):
-        """Multiblock superstep with IN-KERNEL banded negatives (round
-        5): per micro-step the shared-negative pool is drawn from its
-        own band by the exact stratified negative law
-        (BandedTables.build_neg_bands) and updated inside the kernel's
-        third slab stream -- no whole-table cn gather, no deferred
-        d_neg apply (the 11.7 us/micro-step of XLA work measured in
-        experiments/multiblock_breakdown2.py)."""
-        from smore_tpu.ops.pallas_sgns_banded import (
-            sgns_banded_multiblock_nb,
-        )
-
-        band_size = self.banded_tables.band_size
-        Ks = shared_negatives
-        _interp = jax.default_backend() == "cpu"
-
-        def step(state, bt, key, alphas):
-            k1, k2 = jax.random.split(key)
-            if bt.stream is not None:
-                sb, db, src_l, pos_l, _ = bt.draw_banded_stream(
-                    k1, batch, 0, hoist, with_negs=False
-                )
-            else:
-                sb, db, src, pos, _ = bt.draw_banded_batches_hoisted(
-                    k1, batch, 1, 0, hoist
-                )
-                src_l = src - sb[:, None]
-                pos_l = pos - db[:, None]
-            nb, negs_l = bt.draw_neg_banded(k2, Ks, hoist)
-            wvf, wcf, loss_sum = sgns_banded_multiblock_nb(
-                state["wvf"], state["wcf"], sb // band_size,
-                db // band_size, nb, src_l, pos_l, negs_l, alphas,
-                band_size=band_size, nb2=bt.nb2, k_equiv=negatives,
-                interpret=_interp,
-            )
-            return {"wvf": wvf, "wcf": wcf}, loss_sum / (hoist * batch)
-
-        return step
-
-    def _make_banded_multiblock_step(self, batch, negatives,
-                                     shared_negatives, hoist):
-        """DMA-staged MULTI-band superstep (order-2, group=1): each of
-        the ``hoist`` micro-steps works its OWN band pair inside one
-        Pallas call; the tables live 2-ROW-FOLDED ((N_pad/2, 2D), so
-        HBM band slices are 128-lane aligned at half the slab bytes)
-        and the kernel stages each step's two band slabs through VMEM
-        scratch itself (ops/pallas_sgns_banded.sgns_banded_multiblock).
-        Keeps the quality-critical per-stratum CONCENTRATION at the
-        proven visit-2048/band-16392 ratio (40M gate: AUC 0.618 there
-        vs 0.599 at band 8200 -- round-4 ablation) without the fixed
-        per-micro-step costs that made small no-hold batches slow
-        (8.6 M/s at b=2048; PERF_NOTES round-3)."""
-        from smore_tpu.ops.pallas_sgns_banded import sgns_banded_multiblock
-
-        band_size = self.banded_tables.band_size
-        Ks = shared_negatives
-        _interp = jax.default_backend() == "cpu"
-
-        def step(state, bt, key, alphas):
-            if bt.stream is not None:
-                # pre-sampled per-stratum stream: band-LOCAL indices
-                # from one contiguous window read (the per-sample
-                # edge-row gather was 100% of the draw cost --
-                # experiments/draw_decomp.py)
-                sb, db, src_l, pos_l, negs = bt.draw_banded_stream(
-                    key, batch, Ks, hoist
-                )
-            else:
-                sb, db, src, pos, negs = bt.draw_banded_batches_hoisted(
-                    key, batch, 1, Ks, hoist
-                )
-                src_l = src - sb[:, None]
-                pos_l = pos - db[:, None]
-            wvf, wcf = state["wvf"], state["wcf"]
-            D = wvf.shape[1] // 2
-            negs_flat = negs.reshape(-1)
-            fn = negs_flat >> 1
-            par = (negs_flat & 1)[:, None]
-            rows = wcf.at[fn].get(mode="promise_in_bounds")
-            cn = jnp.where(par == 1, rows[:, D:], rows[:, :D]).reshape(
-                hoist, Ks, D
-            )
-            wvf, wcf, d_neg, loss_sum = sgns_banded_multiblock(
-                wvf, wcf, sb // band_size, db // band_size,
-                src_l, pos_l, cn, alphas,
-                band_size=band_size, k_equiv=negatives,
-                interpret=_interp,
-            )
-            # deferred negative apply: parity-placed folded-row deltas
-            dd = d_neg.reshape(-1, D)
-            z = jnp.zeros_like(dd)
-            d_full = jnp.where(
-                par == 1,
-                jnp.concatenate([z, dd], axis=1),
-                jnp.concatenate([dd, z], axis=1),
-            )
-            wcf = wcf.at[fn].add(d_full, mode="promise_in_bounds")
-            return {"wvf": wvf, "wcf": wcf}, loss_sum / (hoist * batch)
-
-        return step
-
     def _make_banded_block_step(self, batch, negatives, shared_negatives,
-                                group, hold, pallas_scatter=False,
-                                fused=False):
+                                group, hold):
         """Band-PERSISTENT superstep (order-2 only): one stratum held for
         ``hold`` micro-batches; both band slices are paid once per block
         instead of once per micro-step (ops.update.sgns_banded_block,
-        sampling law unchanged -- BandedTables.draw_banded_block).
-        fused: micro-steps run through the fused Pallas kernel on the
-        carried band slices -- the cheap-small-batch mode."""
+        sampling law unchanged -- BandedTables.draw_banded_block)."""
         band_size = self.banded_tables.band_size
         Ks = shared_negatives
 
@@ -335,8 +224,7 @@ class LINE(PairModelBase):
             wv, wc, loss = sgns_banded_block(
                 state["vertex"], state["context"], sb, db, band_size,
                 src, pos, negs, alphas, k_equiv=negatives,
-                src_group=group, pallas_scatter=pallas_scatter,
-                fused=fused,
+                src_group=group,
             )
             return {"vertex": wv, "context": wc}, loss
 
@@ -347,92 +235,45 @@ class LINE(PairModelBase):
         sample_times: int = 10,
         negative_samples: int = 5,
         alpha: float = 0.025,
-        batch: int = 0,  # 0 = auto: 32768, except the fused banded path
-        # takes 16384 (batch scales with band size so per-budget stratum
-        # coverage matches the proven 32776-band config). An explicit
-        # value is always respected as-is.
+        batch: int = 0,  # 0 = auto: 32768 (clamped to the table size).
+        # An explicit value is always respected as-is.
         steps_per_call: int = 128,
         collision: str = "sum",
         shared_negatives: int = 128,
         group: int = 0,  # 0 = auto: 1 on the banded order-2 path (2D
         # strata make grouped source reuse unnecessary, and group=1 is
-        # the reference's exact per-sample source law -- it matches the
-        # reference's convergence at EVERY budget, not just saturation,
-        # PERF_NOTES.md), 8 everywhere else
-        use_pallas: object = "auto",  # unbanded path: fused grads kernel
-        # (wins only ungrouped, 18.7 vs 18.0 M samples/s -- in grouped
-        # mode XLA's own overlap of draws and grads is faster,
-        # PERF_NOTES.md; "auto" = off there). Banded path: routes the
-        # two in-band scatters through the serial in-VMEM Pallas kernel
-        # (ops/pallas_scatter, 5.7 vs 10 ns/row); "auto" = ON on the
-        # TPU backend when the scatter batches tile (1.304 vs 1.99
-        # ms/step at Youtube scale, experiments/banded_hoist.py)
+        # the reference's exact per-sample source law), 8 everywhere else
         hoist: int = 0,  # 0 = auto: mega-draw for N batches at a time
         # (identical law -- draws are state-independent). 32 on the
-        # grouped shared-negatives path (1.46x, _make_step) for
-        # single-chip AND rows sharding (same logical single-stream
-        # program, so rows stays bit-identical to single-chip); 8 on the
-        # banded path (1.17x at Youtube scale, _make_banded_step); 1
-        # under mesh DP (per-device deltas merge each step, so hoisting
-        # would change the merge cadence)
+        # grouped shared-negatives path for single-device AND rows
+        # sharding (same logical single-stream program, so rows stays
+        # bit-identical to single-device); 8 on the banded path; 1 under
+        # mesh DP (per-device deltas merge each step, so hoisting would
+        # change the merge cadence)
         banded: object = "auto",  # True | False | "auto" (see module
-        # constant): band-stratified updates, the large-table fast path
+        # constant): band-stratified updates, the large-table path
         band_hold: object = "auto",  # band-PERSISTENT superstep (order-2
         # banded path): hold ONE stratum for the whole hoist block so
         # both band slices are paid once per block instead of once per
         # micro-step (sgns_banded_block; per-SAMPLE law unchanged, but
-        # steps*batch consecutive samples share a stratum). Measured at
-        # Youtube scale: +9% throughput (22.7 vs 20.8 M samples/s) but
-        # the coarser stratum coverage costs quality at the 40M gate
-        # (AUC 0.557@hold=8 / 0.514@hold=32 vs 0.614 per-step,
-        # experiments/band_hold_bench.py) -- so "auto" = OFF; the fused
-        # Pallas band kernel is the sanctioned fast path instead
+        # steps*batch consecutive samples share a stratum, which costs
+        # quality at the 40M gate) -- so "auto" = OFF
         band_size: int = 0,  # 0 = sampling.banded.DEFAULT_BAND_SIZE
-        multiband: object = "auto",  # DMA-staged multi-band kernel: one
-        # band pair PER MICRO-STEP, folded-table band slabs staged by
-        # in-kernel DMA (sgns_banded_multiblock) -- the proven
-        # per-stratum concentration at amortized fixed cost. "auto" =
-        # ON for the TPU backend when shapes fit (order-2, group=1,
-        # dim%64==0, batch%128==0): 30.6 M samples/s at EXACT 400M
-        # reference parity (0.9650) and gate 0.617 at YT scale,
-        # round-4. True additionally enables the CPU interpret path.
-        neg_band: object = "auto",  # in-kernel BANDED negative pools
-        # (multiband path only): each micro-step's shared-negative pool
-        # is drawn from ONE band by the exact stratified negative law
-        # (deg^0.75 band mass x within-band conditional; the per-sample
-        # marginal telescopes to the reference law exactly) and updated
-        # inside the kernel's third DMA-staged slab -- removing the
-        # whole-table cn gather + deferred d_neg scatter (11.7
-        # us/micro-step, experiments/multiblock_breakdown2.py) and
-        # making negative rows fresh per micro-step instead of
-        # per-superstep. Deviation vs the global pool: a step's Ks
-        # negatives share a window (within-step correlation). Measured
-        # (round 5): +4 M/s (39.0 vs 34.9) but the 40M gate tracks the
-        # window size (0.6087@16400 / 0.6033@3280 / 0.5866@656 /
-        # 0.5752@400 vs ref 0.6091 +- 0.0037) -- "auto" = OFF until a
-        # config holds the gate at parity; True opts in (window 3280).
-        edge_stream: object = "auto",  # pre-sampled per-stratum edge
-        # streams (BandedTables.build_stream): replaces the per-sample
-        # random edge-row gather (100% of the measured draw cost) with
-        # one contiguous window read per micro-step. iid pre-draws, so
-        # the per-sample law is exact; reuse across the run is the
-        # gated deviation. "auto" = on for the multiband path.
         mesh=None,
         sharding: str = "dp",
         verbose: bool = True,
     ) -> None:
         total = int(sample_times * 1_000_000)
         n = self.graph.n_vertices
-        auto_batch = batch == 0
-        if auto_batch:
+        if batch == 0:
             batch = 32768
-        # Multi-chip: the banded fast path runs under a mesh via the
+        # Multi-device: the banded path runs under a mesh via the
         # driver's "hogwild" mode (per-device independent full-law
         # streams on replicated tables, delta-psum merge once per jit
-        # call -- the TPU analog of the reference's hogwild threads,
+        # call -- the analog of the reference's hogwild threads,
         # LINE.cpp:162; see TrainDriver.__init__). Explicit
-        # sharding="rows" (the bigger-than-HBM capacity mode) keeps the
-        # unbanded GSPMD row-sharded path.
+        # sharding="rows" (the bigger-than-one-card capacity mode) keeps
+        # the unbanded GSPMD row-sharded path.
         use_banded = bool(
             shared_negatives
             and collision == "sum"
@@ -460,12 +301,9 @@ class LINE(PairModelBase):
             # degenerate tables (>=2^24 edges/vertices) fall back to the
             # per-step path, which has its own two-stage fallback
             hoist = 1
-        auto_hoist = hoist == 0
         if hoist == 0:
             if use_banded and shared_negatives:
-                hoist = 8  # saturation point at Youtube scale
-                # (experiments/banded_hoist.py: 16.7 -> 19.6 M samples/s,
-                # flat from 8 to 32)
+                hoist = 8
             elif (
                 shared_negatives
                 and group > 1
@@ -479,90 +317,10 @@ class LINE(PairModelBase):
         if use_banded:
             from smore_tpu.sampling.banded import (
                 DEFAULT_BAND_SIZE,
-                FUSED_BAND_SIZE,
                 BandedTables,
             )
 
-            # Tile constraint shared by both Pallas paths: B multiple of
-            # 2048, or < 2048 and a multiple of 8 (pos: batch rows,
-            # src: batch/G rows).
-            def _tiles(b):
-                return b % 2048 == 0 or (b < 2048 and b % 8 == 0)
-
-            on_tpu = jax.default_backend() == "tpu"
-            # MULTIBAND DMA-staged kernel (sgns_banded_multiblock): the
-            # round-4 production default. One band pair per micro-step,
-            # folded tables, pre-sampled edge streams: 30.6 M samples/s
-            # at EXACT 400M parity (0.9650 == ref) and gate 0.617
-            # (ref band 0.611-0.617) at YT scale -- vs 18.9 M at
-            # 0.602/0.9624 for the round-3 fused default. "auto" = on
-            # for the TPU backend when shapes fit (order-2, group=1,
-            # dim % 64 == 0); True additionally enables the CPU
-            # interpret path (tests).
-            use_multi = (
-                self.order == 2
-                and group == 1
-                and self.dim % 64 == 0
-                and (multiband is True
-                     or (multiband == "auto" and on_tpu))
-            )
-            if use_multi and auto_batch:
-                # batch IS the per-stratum visit; 2048 at band 16400 is
-                # the proven exact-parity concentration
-                batch = clamp_batch(n, 2048, group=group)
-            if use_multi:
-                # parity inputs ship (S, B//128, 128) and the per-tile
-                # parity slice reshapes (tr, 128) -> (TB,), which this
-                # Mosaic only lowers for tr in {1, 8} (TB = min(1024,
-                # batch)): batch must be 128 or a multiple of 1024
-                tb = min(1024, batch)
-                if batch % 128 or batch % tb or (tb // 128) not in (1, 8):
-                    use_multi = False
-            # FUSED kernel (ops/pallas_sgns_banded.py): gather + SGNS
-            # math + scatter in one VMEM-resident pass -- the fast path
-            # for the ungrouped 2D config when multiband is off.
-            # use_pallas="scatter" selects the scatter-only kernel.
-            fused = (
-                not use_multi
-                and self.order == 2
-                and group == 1
-                and _tiles(batch)
-                and (use_pallas is True or (use_pallas == "auto" and on_tpu))
-            )
-            # Fallback: serial in-VMEM scatter kernel only (5.7 vs 10
-            # ns/row, 1.304 vs 1.99 ms/step at Youtube scale).
-            pallas_scat = not fused and (
-                use_pallas is True
-                or (use_pallas in ("auto", "scatter") and on_tpu
-                    and _tiles(batch) and _tiles(batch // group))
-            )
-
-            # both bands must fit VMEM together on the fused path; the
-            # multiband path needs its fold-aligned band
-            from smore_tpu.sampling.banded import MULTI_BAND_SIZE
-
-            auto_band = band_size == 0
-            band_size = band_size or (
-                MULTI_BAND_SIZE if use_multi
-                else FUSED_BAND_SIZE if fused
-                else DEFAULT_BAND_SIZE
-            )
-            if use_multi and band_size % 16:
-                use_multi = False  # folded slab height must be
-                # sublane-aligned (kernel asserts band % 16 == 0)
-            if (fused and auto_batch and auto_band
-                    and band_size < DEFAULT_BAND_SIZE):
-                # The 40M-gate AUC tracks the per-stratum VISIT size
-                # (0.618@2048-sample visits, 0.606@4096, 0.585@16384 vs
-                # the reference's 0.611-0.617; same ordering at 120M --
-                # PERF_NOTES "stratum-VISIT size"). batch IS the visit
-                # size on the no-hold path; 4096 is the largest batch
-                # that holds the quality gate (13.8 M samples/s, 48x the
-                # all-core reference). Explicit batch trades the other
-                # way (16384 -> 24-31 M/s at ~0.03 AUC below the gate).
-                # Re-clamp: explicit banded=True on a small graph must
-                # not overshoot its table (clamp_batch rationale).
-                batch = clamp_batch(n, 4096, group=group)
+            band_size = band_size or DEFAULT_BAND_SIZE
             two_d = self.order == 2
             bt = getattr(self, "banded_tables", None)
             if bt is None or bt.band_size != band_size or bt.two_d != two_d:
@@ -576,90 +334,21 @@ class LINE(PairModelBase):
                 k: jnp.pad(v, ((0, n_pad - n), (0, 0)))
                 for k, v in self.state.items()
             }
-            if use_multi:
-                if auto_hoist or hoist < 2:
-                    hoist = 16  # micro-steps per superstep (the S grid
-                    # dim); 16 measured at parity, 32 marginally faster
-                want_stream = (
-                    edge_stream is True
-                    or (isinstance(edge_stream, int)
-                        and edge_stream > 1)
-                    or (edge_stream == "auto"
-                        and bt.band_size < (1 << 15))
-                )
-                if want_stream:
-                    # mult=32 keeps entry reuse ~1x over a 400M-sample
-                    # run -- statistically indistinguishable from fresh
-                    # draws (400M AUC 0.9650 == reference exactly, vs
-                    # 0.9633 at mult=16 and 0.9570 at mult=4; fresh
-                    # kernel arm 0.9646). ~0.9 GB of HBM at YT scale.
-                    mult = (edge_stream
-                            if isinstance(edge_stream, int)
-                            and edge_stream > 1 else 32)
-                    if bt.stream is None:
-                        bt.build_stream(mult=mult, seed=self.seed)
-                use_nb = neg_band is True and shared_negatives % 8 == 0
-                if use_nb:
-                    if bt.neg_band_pa is None:
-                        # 3280 rows when it divides the band (true
-                        # for MULTI_BAND_SIZE 16400; best measured
-                        # quality/speed point of the window ladder);
-                        # else whole-band windows (small test graphs)
-                        nb2 = (3280 if band_size % 3280 == 0
-                               else band_size)
-                        bt.build_neg_bands(
-                            self.graph,
-                            negative_method=self.negative_method,
-                            nb2=nb2,
-                        )
-                    step_fn = self._make_banded_multiblock_nb_step(
-                        batch, negative_samples, shared_negatives, hoist
-                    )
-                else:
-                    step_fn = self._make_banded_multiblock_step(
-                        batch, negative_samples, shared_negatives, hoist
-                    )
-                self.last_driver = driver = TrainDriver(
-                    step_fn,
-                    ctx=self.banded_tables,
-                    samples_per_step=batch * hoist,
-                    alpha=alpha,
-                    total_samples=total,
-                    steps_per_call=max(1, steps_per_call // hoist),
-                    micro_steps=hoist,
-                    mesh=mesh,
-                    sharding=sharding,
-                    **self._ckpt_kw(),
-                )
-                # 2-row-folded layout: (N_pad/2, 2D) per table so the
-                # kernel's HBM band slices are 128-lane aligned at half
-                # the slab bytes (ops/pallas_sgns_banded.fold_table)
-                from smore_tpu.ops.pallas_sgns_banded import (
-                    fold_table,
-                    unfold_table,
-                )
-
-                out = driver.train(
-                    {"wvf": fold_table(state["vertex"]),
-                     "wcf": fold_table(state["context"])},
-                    self._key(), verbose=verbose,
-                )
-                self.state = {
-                    "vertex": unfold_table(out["wvf"])[:n],
-                    "context": unfold_table(out["wcf"])[:n],
-                }
-                return
             use_hold = band_hold is True and self.order == 2 and hoist > 1
             if use_hold:
                 step_fn = self._make_banded_block_step(
                     batch, negative_samples, shared_negatives, group,
-                    hoist, pallas_scatter=pallas_scat, fused=fused,
+                    hoist,
                 )
             else:
                 step_fn = self._make_banded_step(
                     batch, negative_samples, shared_negatives, group,
-                    hoist, pallas_scatter=pallas_scat, fused=fused,
+                    hoist,
                 )
+            self.step_name = "banded, held band" if use_hold else "banded"
+            if verbose:
+                print(f"\tstep: {self.step_name}, batch {batch}, "
+                      f"hoist {hoist}, band {band_size}", flush=True)
             self.last_driver = driver = TrainDriver(
                 step_fn,
                 ctx=bt,
@@ -676,10 +365,13 @@ class LINE(PairModelBase):
             self.state = {k: v[:n] for k, v in out.items()}
             return
 
+        self.step_name = "unbanded"
+        if verbose:
+            print(f"\tstep: {self.step_name}, batch {batch}, "
+                  f"hoist {hoist}, group {group}", flush=True)
         self.last_driver = driver = TrainDriver(
             self._make_step(batch, negative_samples, collision,
-                            shared_negatives, group,
-                            use_pallas is True, hoist),
+                            shared_negatives, group, hoist),
             ctx=self.build_sampler(),
             samples_per_step=batch * hoist,
             alpha=alpha,

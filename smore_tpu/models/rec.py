@@ -51,7 +51,7 @@ class _SharedTableRec(PairModelBase):
 
     def _shared_kernel(self, state, src, pos, pool, extra, alpha,
                        collision):
-        """Shared-pool fast path (Ks negatives per step on the MXU);
+        """Shared-pool fast path (Ks negatives per step as one matmul);
         ``extra`` carries WARP's per-sample trial indices."""
         raise NotImplementedError
 
@@ -127,7 +127,7 @@ class _SharedTableRec(PairModelBase):
         # inner scan (identical law; see models/line.py). 0 = auto: 8 on
         # the shared-pool single-stream path, else 1.
         shared_negatives: int = -1,  # Ks-row shared negative pool per
-        # step, scored against every sample on the MXU with k_equiv/Ks
+        # step, scored against every sample as one matmul with k_equiv/Ks
         # scaling (ops/update.py shared-pool rec kernels) -- the same
         # expectation-preserving transform as LINE's shared negatives.
         # 0 = the reference's per-sample fresh negatives; -1 = class
@@ -260,8 +260,8 @@ class SkewOPT(_SharedTableRec):
     # 0.9231) that round 4 root-caused to UNDIRECTED loading (the
     # reference CLIs hardcode directed, cli/skewopt.cpp:69). Re-tested
     # DIRECTED at 3 seeds/side (experiments/rec_repromote.py, round 5):
-    # r@10 0.9223 +- 0.0007 vs ref 0.9226 +- 0.0001 at ~5 M/s (vs 2.6
-    # per-sample) -- the pool is back as the default.
+    # r@10 0.9223 +- 0.0007 vs ref 0.9226 +- 0.0001, faster than
+    # per-sample negatives -- the pool is back as the default.
     default_shared_negatives = 256
 
     def __init__(self, graph, seed: int = 0, xi: float = 10.0,

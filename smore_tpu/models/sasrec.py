@@ -267,7 +267,7 @@ class SASRec:
         embedding table trains (sasrec.go:553-593 updates itemEmbed rows
         alone). Default False = full autodiff, the documented upgrade.
 
-        checkpoint: orbax checkpoint dir — the FULL train state (flax
+        checkpoint: checkpoint dir — the FULL train state (flax
         params, optax adam state, PRNG chain) is saved every
         ``checkpoint_every`` epochs (and at the end); with ``resume`` a
         restart continues the exact uninterrupted trajectory (the
@@ -301,8 +301,8 @@ class SASRec:
         key = jax.random.PRNGKey(self.seed + 7)
         start_ep = 0
         if checkpoint:
-            # Optax states are NamedTuple pytrees orbax won't round-trip
-            # structurally; store the flat leaves and unflatten against a
+            # Optax states are NamedTuple pytrees a dict checkpoint cannot
+            # hold structurally; store the flat leaves and unflatten against a
             # freshly built treedef (tx.init of the current params).
             from smore_tpu.utils.checkpoint import (
                 checkpoint_exists, load_checkpoint, save_checkpoint)

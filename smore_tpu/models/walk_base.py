@@ -4,7 +4,7 @@ Reference loop shape (src/model/DeepWalk.cpp:98-155): per epoch, shuffle
 all vertices, then per vertex: RandomWalk -> mapper -> UpdatePairs, with
 alpha decayed linearly over walk_times * N walks.
 
-TPU loop shape: one jitted step draws a batch of start vertices, runs the
+Loop shape: one jitted step draws a batch of start vertices, runs the
 whole walk + mapper + fused masked SGNS update on device; the alpha
 schedule counts walks. Starts are drawn uniformly at random rather than
 via a per-epoch permutation -- identical in expectation, and it keeps the

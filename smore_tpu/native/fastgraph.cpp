@@ -10,7 +10,7 @@
 //     (role of proNet::AliasMethod, proNet.cpp:544-620)
 //
 // Exposed as a C ABI consumed via ctypes (see fastgraph.py). All compute
-// stays on the TPU; this file is strictly load-time data preparation.
+// stays on the device; this file is strictly load-time data preparation.
 
 #include <charconv>
 #include <cstdint>

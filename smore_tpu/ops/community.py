@@ -440,11 +440,11 @@ fields_community_step = field_community_step
 
 
 # ===================================================================== #
-# Shared-pool variants (round 5): the MXU lever that took the rec
+# Shared-pool variants (round 5): the shared-pool lever that took the rec
 # family to 14-20x. The community kernels' per-sample cost is row-op
 # bound -- CBOW touches 2S + K*S rows per sample (70 at the defaults),
 # DChoice 3 + K -- so replacing per-sample negatives with one Kp-row
-# pool scored against the whole batch on the MXU removes the dominant
+# pool scored against the whole batch as one matmul removes the dominant
 # K-term. For the SIGMOID kernels (cbow) the transform is exactly
 # expectation-preserving (the gradient is additive in negative sets,
 # scaled k_equiv/Kp -- same argument as LINE's shared pool); for the
@@ -481,7 +481,7 @@ def cbow_step_shared_negs(
 
     f_pos = jnp.einsum("bd,bd->b", wa, ca)
     g_pos = 1.0 - jax.nn.sigmoid(f_pos)
-    f_neg = wa @ na.T  # (B, Kp) on the MXU
+    f_neg = wa @ na.T  # (B, Kp) as one matmul
     g_neg = -jax.nn.sigmoid(f_neg) * scale
     if mask is not None:
         g_pos = g_pos * mask
@@ -645,7 +645,7 @@ def field_community_step_shared_negs(
     dominant row-op term: 70% of the kernel's rows at K=5). The
     sigmoid gradient is additive in negatives, so k_equiv/Kp scaling
     preserves the per-sample expected update exactly; selection is by
-    one-hot field masks on the MXU, not gathers."""
+    one-hot field masks as one matmul, not gathers."""
     B, S = ctx_walk.shape
     F, Kp = neg_pool.shape
     scale = k_equiv / Kp

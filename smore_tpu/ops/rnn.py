@@ -1,4 +1,4 @@
-"""Standalone RNN cell: the TPU-native equivalent of the reference's
+"""Standalone RNN cell: the batched equivalent of the reference's
 pkg/rnn (/root/reference/pkg/rnn/rnn.go).
 
 The reference ships a tiny reusable package -- a simple tanh RNN cell
@@ -9,7 +9,7 @@ error * (1 - h'^2) outer-producted into Wh/Wx/b, plain SGD ascent), and
 0...]). JODIE is its only consumer there (jodie.go), as here
 (smore_tpu/models/jodie.py) -- but the module is reusable on its own.
 
-TPU design: parameters are a pytree dict; every op is batched over a
+Design: parameters are a pytree dict; every op is batched over a
 leading axis and jit-safe (pure functions returning new params instead
 of in-place mutation).
 """

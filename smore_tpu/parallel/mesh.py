@@ -1,7 +1,7 @@
 """Device-mesh helpers for multi-chip training.
 
 The reference's only parallelism is single-node hogwild threads
-(SURVEY.md section 2.5). The TPU-native replacement:
+(SURVEY.md section 2.5). The mesh replacement:
 
   - data axis "d": each device draws an independent batch shard (the
     analog of the reference's per-thread RNG streams,
@@ -10,7 +10,7 @@ The reference's only parallelism is single-node hogwild threads
   - row-sharded tables: vertex rows striped over "d"
     (``NamedSharding(mesh, P("d", None))``); gathers/scatters against a
     sharded table are partitioned by GSPMD, which inserts the all-to-all /
-    all-gather collectives over ICI automatically.
+    all-gather collectives automatically.
 """
 
 from __future__ import annotations
@@ -47,8 +47,8 @@ def shard_state(state, mesh: Mesh, axis: str = "d"):
     """Large-graph mode: place every embedding table row-sharded over the
     mesh. A TrainDriver jit over such state keeps the shardings; GSPMD
     partitions the gathers/scatter-adds and inserts the all-gather /
-    all-to-all collectives over ICI (SURVEY.md 5.8). Use when the tables
-    do not fit one chip's HBM; for smaller graphs prefer
+    all-to-all collectives (SURVEY.md 5.8). Use when the tables
+    do not fit one card's memory; for smaller graphs prefer
     TrainDriver(mesh=...) data parallelism (replicated tables)."""
     rows = row_sharded(mesh, axis)
     return jax.tree.map(

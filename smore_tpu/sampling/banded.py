@@ -1,19 +1,16 @@
-"""Band-stratified edge sampling: the large-table TPU fast path.
+"""Band-stratified edge sampling: the large-table path.
 
-Motivation (measured, experiments/probes/band_probe.py): an XLA scatter-add of B
-random rows costs ~0.5 ms/step while the target table is <= 131k rows and
-~5x that above 262k rows -- the per-row cost is table-size-bound, not
-byte- or locality-bound (bf16 rows and unique-index hints don't help).
-At Youtube scale (~1M vertices) the context-table scatter therefore
-dominates the SGNS step (PERF_NOTES.md "3.6x cliff").
+Motivation: random-row scatter-adds into a small table are cheaper than
+into a large one, and a step whose rows all lie in one band keeps its
+working set small enough to stay in cache.
 
 Design: partition the context-table row space into BANDS of `band_size`
 rows. Each training step first draws a band b with probability equal to
 the band's share of the edge-sample mass, then draws its whole batch of
 (src, pos) pairs CONDITIONED on pos being in band b. The step's positive
-scatter then touches only rows [b*band, (b+1)*band), so the kernel
-dynamic-slices that band out of the big table, scatters at small-table
-cost, and writes the band back (~0.15 ms of extra copy traffic).
+scatter then touches only rows [b*band, (b+1)*band), so the XLA step
+dynamic-slices that band out of the big table, scatters into it, and
+writes the band back.
 
 Law exactness: P(band) * P(src, pos | band) telescopes to the unbanded
 joint edge law P_v(src) * w^0.75 / Z_src (SamplerTables.edge_pa law) --
@@ -26,9 +23,8 @@ draws already do; quality is gated by the community-AUC parity runs.
 
 Memory: the banded edge table stores both the slot edge and its alias
 edge inline -- a (E, 8) f32 row (32 B) so ONE gather serves the whole
-ungrouped draw (the draw's dominant cost, experiments/fused_breakdown.py);
-the (segment offset, length) pointers for grouped context draws live in
-a separate (E, 4) table gathered only when group > 1.
+ungrouped draw; the (segment offset, length) pointers for grouped context
+draws live in a separate (E, 4) table gathered only when group > 1.
 
 Two flavors (build(two_d=...)):
   1D (two_d=False): strata = dst band only. The source side is handled
@@ -36,10 +32,10 @@ Two flavors (build(two_d=...)):
      Used by LINE order-1, where source rows share the context table.
   2D (two_d=True, default): strata = (src band, dst band) pairs -- BOTH
      tables' scatters ride a band slice, so group=1 (the reference's
-     exact per-sample source diversity) keeps full speed. Measured: at
-     a 40M budget on the Youtube-scale graph, group=8 lags the
-     reference's convergence (AUC 0.568 vs 0.611) while banded group=1
-     matches it (0.614) -- grouping, not banding, was the gap.
+     exact per-sample source diversity) keeps full speed. At a 40M
+     budget on the Youtube-scale graph, group=8 lagged the reference's
+     convergence while banded group=1 matched it -- grouping, not
+     banding, was the gap (a quality result of the earlier build).
 """
 
 from __future__ import annotations
@@ -58,44 +54,14 @@ from smore_tpu.sampling.tables import SamplerTables, _vertex_distribution
 #   0 prob | 1 src 2 dst | 3 asrc 4 adst   (5..7 zero pad)
 # Segment data for GROUPED draws lives in the separate edge_seg table
 # ((E, 4): seg_off, seg_deg, aseg_off, aseg_deg) so the ungrouped
-# production draw gathers 32-byte rows instead of 64 -- the slot gather
-# is the draw's dominant cost (experiments/fused_breakdown.py).
+# production draw gathers 32-byte rows instead of 64.
 _EDGE_COLS = 8
 
-# Default band size: ~32k rows (8 MB of f32x64 -- comfortably inside the
-# measured small-scatter regime), a multiple of 8 (f32 sublane tile), but
-# NOT divisible by a large power of two: full-table random scatters are
-# pathologically slow when the table's row count has a large 2-adic
-# factor (measured: a 4k-row scatter into 950,272 = 29*2^15 rows costs
-# ~2 ms vs ~0.35 ms into 921,878; pure 2^19 = 524,288 is the worst case
-# -- experiments/probes/banded_debug3.py / band_probe.py). Since banding pads
-# the table to n_bands * band_size, the band size must carry the
-# de-aliasing: 32776 = 8 * 17 * 241.
+# Default band size: ~32k rows (8 MB of f32 x 64), a multiple of 8 and NOT
+# divisible by a large power of two (32776 = 8 * 17 * 241), because
+# banding pads the table to n_bands * band_size. The value was tuned on
+# another accelerator and has not been re-measured on the H100.
 DEFAULT_BAND_SIZE = 32776
-
-# Band size for the FUSED Pallas path (ops/pallas_sgns_banded.py): both
-# bands live in VMEM simultaneously (~16 MB/core), so each must fit in
-# ~4.2 MB at D=64 f32. Same de-aliasing requirement as above:
-# 16392 = 8 * 3 * 683 (2-adic factor only 2^3). Smaller bands only
-# refine the stratification -- the per-sample law is band-size-invariant
-# (the telescoping argument above holds for any partition) and each
-# vertex participates in n_bands strata per side, so per-vertex update
-# mass is unchanged.
-FUSED_BAND_SIZE = 16392
-
-# Band size for the MULTI-band DMA-staged kernel (sgns_banded_multiblock,
-# round 4): each table lives 2-ROW-FOLDED ((N_pad/2, 2D)) and the kernel
-# DMAs each micro-step's two half-height band SLABS into two VMEM
-# scratch buffers itself (the round-3 grid-pipeline variant OOMed at
-# every band size because Mosaic staged ~16 band-block buffers). VMEM
-# cost = 2 * (band/2) * 2D * 4 B = band * 512 B at D=64, so a band at
-# the quality-PROVEN 16392-grade concentration (the 0.618-gate /
-# exact-400M-parity ratio at visit 2048 -- round-4 ablation measured
-# 0.599 at band 8200) fits: 8.4 MB of slabs. The folded HALF-height
-# must be sublane-aligned (multiple of 8; a 8196-row slab DMA faults
-# the TPU worker), so band % 16 == 0: 16400 = 2^4 * 5^2 * 41 (2-adic
-# factor 2^4 only -- the de-aliasing rule fears LARGE powers of two).
-MULTI_BAND_SIZE = 16400
 
 
 @jax.tree_util.register_pytree_node_class
@@ -125,40 +91,16 @@ class BandedTables:
     n_rows_padded: int
     n_bands: int
     two_d: bool
-    # optional pre-sampled edge STREAM (build_stream): per stratum, a
-    # contiguous run of iid pre-drawn (src, pos) pairs packed band-local
-    # as (src_l << 16) | pos_l. stream_meta: (n_strata, 2) i32
-    # [offset, length]. None when not built.
-    stream: jnp.ndarray | None = None
-    stream_meta: jnp.ndarray | None = None
-    # optional BANDED-negative alias tables (build_neg_bands): the
-    # global negative law stratified by WINDOWS of nb2 rows (a finer
-    # granularity than the edge bands -- nb2 divides band_size, so a
-    # negative window always sits inside exactly one context band) so
-    # the in-kernel banded negative pool can draw window-local
-    # negatives and stage a tiny (nb2/2, 2D) slab. neg_band_pa:
-    # (Np/nb2, 2) f32 window-level alias by within-window deg^0.75
-    # mass; neg_local_pa: (Np, 2) f32 [prob, LOCAL alias] per-window
-    # alias over its nb2 slots (padded slots carry zero mass).
-    neg_band_pa: jnp.ndarray | None = None
-    neg_local_pa: jnp.ndarray | None = None
-    nb2: int = 0
 
     def tree_flatten(self):
         children = (self.band_pa, self.band_meta, self.edge_pa,
-                    self.edge_seg, self.ctx_pa, self.neg_pa,
-                    self.stream, self.stream_meta,
-                    self.neg_band_pa, self.neg_local_pa)
+                    self.edge_seg, self.ctx_pa, self.neg_pa)
         return children, (self.band_size, self.n_rows_padded,
-                          self.n_bands, self.two_d, self.nb2)
+                          self.n_bands, self.two_d)
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        return cls(*children[:6], band_size=aux[0], n_rows_padded=aux[1],
-                   n_bands=aux[2], two_d=aux[3], stream=children[6],
-                   stream_meta=children[7], neg_band_pa=children[8],
-                   neg_local_pa=children[9],
-                   nb2=aux[4] if len(aux) > 4 else 0)
+        return cls(*children, *aux)
 
     # ------------------------------------------------------------------ #
     @staticmethod
@@ -275,186 +217,6 @@ class BandedTables:
         )
 
     # ------------------------------------------------------------------ #
-    def build_stream(self, mult: int = 4, min_len: int = 4096,
-                     seed: int = 0) -> "BandedTables":
-        """Pre-sample per-stratum edge STREAMS on the host.
-
-        Measured motivation (experiments/draw_decomp.py, round 4): the
-        hoisted banded draw is 100% bound by the per-sample random 32-B
-        edge-row gather (437 of 439 us at batch 32768; RNG is 13 us).
-        This replaces the per-sample gather with ONE contiguous window
-        read: for each stratum, draw max(mult * cnt_s, min_len) iid
-        samples from the exact within-stratum alias law ONCE at build
-        time (vectorized numpy); a training micro-step then reads a
-        random contiguous window of its stratum's stream.
-
-        Law: every stream entry is an iid draw from the stratum's edge
-        law, so the per-sample marginal of ANY window is exactly the
-        alias law; the window choice only selects WHICH iid pre-draws
-        get used (bootstrap-style reuse across the run). What changes
-        vs fresh draws is sample-diversity over the whole run (entries
-        can repeat, the multiset is finite) -- a variance effect gated
-        by the 40M/400M community-AUC parity runs like every banded
-        config. Entries are packed band-local as (src_l << 16) | pos_l
-        (requires band_size < 32768 for signed-shift safety).
-        """
-        if self.band_size >= (1 << 15):
-            raise ValueError("edge stream needs band_size < 32768")
-        rng = np.random.default_rng(seed)
-        meta = np.asarray(self.band_meta, np.int64)
-        off, cnt = meta[:, 0], meta[:, 1]
-        ns = len(cnt)
-        ep = np.asarray(self.edge_pa, np.float64)
-        prob, esrc, edst = ep[:, 0], ep[:, 1], ep[:, 2]
-        asrc, adst = ep[:, 3], ep[:, 4]
-
-        L = np.where(cnt > 0, np.maximum(mult * cnt, min_len), 0)
-        soff = np.concatenate([[0], np.cumsum(L)])[:-1]
-        total = int(L.sum())
-        sid = np.repeat(np.arange(ns), L)
-        u1 = rng.random(total)
-        u2 = rng.random(total)
-        r = (u1 * cnt[sid]).astype(np.int64)
-        slot = off[sid] + np.minimum(r, np.maximum(cnt[sid] - 1, 0))
-        take = u2 < prob[slot]
-        src = np.where(take, esrc[slot], asrc[slot]).astype(np.int64)
-        pos = np.where(take, edst[slot], adst[slot]).astype(np.int64)
-        if self.two_d:
-            sb = (sid // self.n_bands) * self.band_size
-            db = (sid % self.n_bands) * self.band_size
-        else:
-            sb = np.zeros(total, np.int64)
-            db = sid * self.band_size
-        packed = ((src - sb) << 16) | (pos - db)
-        self.stream = jnp.asarray(packed, jnp.int32)
-        self.stream_meta = jnp.asarray(
-            np.stack([soff, L], 1), jnp.int32)
-        return self
-
-    def build_neg_bands(self, g: Graph, negative_method: str = "degrees",
-                        power: float = 0.75, nb2: int = 400,
-                        ) -> "BandedTables":
-        """Stratify the global negative law by nb2-row WINDOWS (round 5).
-
-        P(neg = v) = deg(v)^0.75 / Z telescopes as P(window) *
-        P(v | window) with P(window) = the window's deg^0.75 mass share
-        -- the same exactness argument as the edge-law banding (module
-        docstring). Lets the multiblock kernel draw each micro-step's
-        shared-negative pool from ONE window and apply the negative
-        updates in-slab, removing the whole-table gather/apply from the
-        step (the measured 11.7 us/micro-step left on the XLA side,
-        multiblock_breakdown2). nb2 must divide band_size (a window
-        then sits inside exactly one context band -- the kernel's
-        containment case) and keep the folded slab sublane-aligned
-        (nb2 % 16 == 0); at 400 rows the slab DMA is ~0.1 MB/step --
-        negligible, unlike a full-band negative slab (measured 29.4 vs
-        34.9 M/s: a 4.2 MB third slab stream LOSES). Deviation vs the
-        global pool: a step's Ks negatives share a window (within-step
-        correlation only; the per-sample marginal is exact) --
-        quality-gated like every banded config."""
-        from smore_tpu.sampling.tables import _negative_distribution
-
-        if self.band_size % nb2 or nb2 % 16:
-            raise ValueError(f"nb2 {nb2} must divide band_size "
-                             f"{self.band_size} and be a multiple of 16")
-        mass = _negative_distribution(g, negative_method).astype(np.float64)
-        mass = np.where(mass > 0, mass**power, 0.0)
-        pad = np.zeros(self.n_rows_padded, dtype=np.float64)
-        pad[: len(mass)] = mass
-        n_win = self.n_rows_padded // nb2
-        win_mass = pad.reshape(n_win, nb2).sum(1)
-        bp, ba = build_alias(win_mass, power=1.0)
-        ba = np.where(ba < 0, np.arange(n_win), ba)
-        indptr = np.arange(n_win + 1, dtype=np.int64) * nb2
-        lp, la = build_alias_segmented(pad, indptr, power=1.0)
-        slot_local = np.arange(self.n_rows_padded, dtype=np.int64) % nb2
-        la = np.where(la >= 0, la, slot_local)  # local alias ids
-        self.neg_band_pa = jnp.asarray(np.stack([bp, ba], 1), jnp.float32)
-        self.neg_local_pa = jnp.asarray(np.stack([lp, la], 1), jnp.float32)
-        self.nb2 = nb2
-        return self
-
-    def draw_neg_banded(self, key: jax.Array, n_negs: int, steps: int):
-        """Per micro-step: a negative WINDOW by its deg^0.75 mass share,
-        then n_negs iid within-window draws from the conditional law
-        (build_neg_bands). Returns (nb (steps,) window indices,
-        negs_l (steps, n_negs) window-LOCAL row ids)."""
-        kb, kl = jax.random.split(key)
-        nbnd = self.neg_band_pa.shape[0]
-        ub = jax.random.uniform(kb, (steps, 2))
-        i = jnp.minimum((ub[:, 0] * nbnd).astype(jnp.int32), nbnd - 1)
-        brow = self.neg_band_pa.at[i].get(mode="promise_in_bounds")
-        nb = jnp.where(ub[:, 1] < brow[:, 0], i,
-                       brow[:, 1].astype(jnp.int32))
-        ul = jax.random.uniform(kl, (steps, n_negs, 2))
-        r = jnp.minimum((ul[:, :, 0] * self.nb2).astype(jnp.int32),
-                        self.nb2 - 1)
-        rows = self.neg_local_pa.at[
-            (nb[:, None] * self.nb2 + r).reshape(-1)
-        ].get(mode="promise_in_bounds").reshape(steps, n_negs, 2)
-        negs_l = jnp.where(ul[:, :, 1] < rows[:, :, 0], r,
-                           rows[:, :, 1].astype(jnp.int32))
-        return nb, negs_l
-
-    def draw_banded_stream(
-        self, key: jax.Array, batch: int, n_negs: int, steps: int,
-        with_negs: bool = True,
-    ):
-        """Stream-backed hoisted draw: per micro-step, one stratum
-        alias draw + one contiguous window of its pre-sampled stream
-        (build_stream). Returns (sb, db, src_l, pos_l, negs) with
-        src/pos BAND-LOCAL, shapes as draw_banded_batches_hoisted.
-        with_negs=False skips the global negative draw (negs=None) --
-        the banded-negative kernel draws its own via draw_neg_banded."""
-        kb, ko, kn = jax.random.split(key, 3)
-
-        ub = jax.random.uniform(kb, (steps, 2))
-        ns = self.band_pa.shape[0]
-        i = jnp.minimum((ub[:, 0] * ns).astype(jnp.int32), ns - 1)
-        brow = self.band_pa.at[i].get(mode="promise_in_bounds")
-        s = jnp.where(ub[:, 1] < brow[:, 0], i,
-                      brow[:, 1].astype(jnp.int32))
-        meta = self.stream_meta.at[s].get(mode="promise_in_bounds")
-        soff, slen = meta[:, 0], meta[:, 1]
-        if self.two_d:
-            sb = (s // self.n_bands) * self.band_size
-            db = (s % self.n_bands) * self.band_size
-        else:
-            sb = jnp.zeros((steps,), jnp.int32)
-            db = s * self.band_size
-
-        uo = jax.random.uniform(ko, (steps,))
-        start = soff + (
-            uo * jnp.maximum(slen - batch + 1, 1).astype(jnp.float32)
-        ).astype(jnp.int32)
-        # CONTIGUOUS window reads must be lax.dynamic_slice, not a
-        # gather: XLA's gather engine pays its per-ELEMENT issue cost
-        # (~13 ns) regardless of element size, which would cost as much
-        # as the 32-B edge-row gathers this path exists to remove
-        # (measured: stream-by-gather 17.0 M/s < hoisted 20.6 M/s;
-        # stream-by-slice removes the draw from the critical path).
-        # steps is small and static, so the unrolled slice loop is fine.
-        packed = jnp.stack([
-            jax.lax.dynamic_slice(self.stream, (start[t],), (batch,))
-            for t in range(steps)
-        ])
-        src_l = packed >> 16
-        pos_l = packed & 0xFFFF
-
-        if not with_negs:
-            return sb, db, src_l, pos_l, None
-
-        un = jax.random.uniform(kn, (steps, n_negs, 2))
-        n = self.neg_pa.shape[0]
-        j = jnp.minimum((un[:, :, 0] * n).astype(jnp.int32), n - 1)
-        nrow = self.neg_pa.at[j.reshape(-1)].get(
-            mode="promise_in_bounds"
-        ).reshape(steps, n_negs, -1)
-        negs = jnp.where(un[:, :, 1] < nrow[:, :, 0], j,
-                         nrow[:, :, 1].astype(jnp.int32))
-        return sb, db, src_l, pos_l, negs
-
-    # ------------------------------------------------------------------ #
     def draw_banded_batch(
         self, key: jax.Array, batch: int, group: int, n_negs: int
     ):
@@ -533,9 +295,7 @@ class BandedTables:
         draws are all state-independent, so hoisting them out of the
         update scan changes nothing about the sampling distribution
         (same transform as SamplerTables.draw_edge_batches_hoisted,
-        tables.py). Amortizing the per-gather fixed costs lifts the
-        Youtube-scale banded step 16.7 -> 19.6 M samples/s
-        (experiments/banded_hoist.py, saturates at steps=8).
+        tables.py); it amortizes the per-gather fixed costs.
 
         Returns (sb, db, src, pos, negs) shaped (steps,), (steps,),
         (steps, batch), (steps, batch), (steps, n_negs); row i is step
@@ -622,8 +382,8 @@ class BandedTables:
         allocation over a run is a multinomial with total/(steps*batch)
         trials instead of total/batch -- a variance, not a bias. The
         update step amortizes the band slice/write-back over the whole
-        block (the point of holding: ~33.5 MB/step of band copy traffic
-        drops by the hold factor -- PERF_NOTES "Roofline accounting").
+        block (the point of holding: band copy traffic drops by the hold
+        factor).
         Quality is gated at the 40M community-AUC parity budget like
         every banded config.
 

@@ -5,7 +5,7 @@ The reference's field system (proNet::LoadFieldMeta + NegativeFieldSample,
 field id and lets models draw negatives restricted to a given field by
 REJECTION (resample until the field matches, e.g. HBPR.cpp:111-113).
 
-TPU design: one alias table per field, concatenated into flat arrays (the
+Design: one alias table per field, concatenated into flat arrays (the
 same layout trick as the per-vertex context tables) so a single gather
 serves every field:
 

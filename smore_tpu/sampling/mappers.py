@@ -1,7 +1,7 @@
 """Walk -> training-pair mappers (fixed-shape, on-device).
 
 Reference mappers materialize variable-length (vertex, context, label)
-lists per walk (/root/reference/src/proNet.cpp:726-987). On TPU every
+lists per walk (/root/reference/src/proNet.cpp:726-987). On the device every
 shape is static: a walk matrix (B, L) maps to a dense (B, L, C) candidate
 grid plus a float mask selecting the valid slots; downstream kernels take
 the mask (padded slots contribute zero gradient).

@@ -4,7 +4,7 @@ with on-device batched draw functions.
 Replaces the reference's per-sample O(1) CPU draws
 (proNet::SourceSample/TargetSample/NegativeSample,
 /root/reference/src/proNet.cpp:623-683) with batched gathers that run
-inside the jitted training step on TPU. A draw is:
+inside the jitted training step on the device. A draw is:
 
     i ~ U{0..n-1};  u ~ U[0,1);  out = where(u < prob[i], value[i], alias[i])
 
@@ -77,7 +77,7 @@ class SamplerTables:
     ctx_alias_vid: jnp.ndarray
     # Packed layouts for fast draws: one row-gather yields every field a
     # draw needs (1-D gathers of separate arrays are several times slower
-    # on TPU). Alias vids are stored as float32 -- exact for vid < 2^24.
+    # on the device). Alias vids are stored as float32 -- exact for vid < 2^24.
     #   vertex_pa: (N, 2) [prob, alias]
     #   neg_pa:    (N, 2) [prob, alias]
     #   vert_meta: (N, 2) int32 [indptr, degree]
@@ -90,8 +90,7 @@ class SamplerTables:
     # EXACTLY the two-stage law P(src) * P(pos | src) -- the slot weight is
     # p_vertex(u) * w_uv^0.75 / Z_u, precomputed on host. Collapses the
     # dependent gather chain source_sample -> vert_meta -> ctx_pa (three
-    # random row reads) into ONE row read; measured 1.5x step speedup
-    # (draws were ~53% of the SGNS step, experiments/perf_sgns.py).
+    # random row reads) into ONE row read.
     #   edge_pa: (E, 8) [prob, src, dst, alias_src, alias_dst, 0, 0, 0]
     # vids stored as float32 (exact below 2^24; build() falls back to a
     # (1, 8) dummy above that, and draw_edge_batch uses the 2-stage path).
@@ -334,9 +333,7 @@ class SamplerTables:
         shot. Identical in law to ``steps`` independent
         draw_edge_batch_grouped calls: draws are state-independent, so
         hoisting them out of the update scan changes nothing about the
-        sampling distribution. Two wins (experiments/perf_sgns.py
-        edge_g8_hoist/edge_g8_hm, 19.1 -> 27.8 M samples/s on the 50k
-        bench): the per-row gather fixed costs amortize over steps*batch
+        sampling distribution. Two wins: the per-row gather fixed costs amortize over steps*batch
         rows, and the per-vertex meta gather runs at the small
         (total//group,) source size and is jnp.repeat-ed (identical by
         composition: vert_meta is a pure function of src).

@@ -3,7 +3,7 @@
 The reference has none (SURVEY.md 5.1) -- only a progress printf every
 10k samples. Here:
   - ``phase_timer``: wall-clock metering per named phase, with a report.
-  - ``trace``: context manager around jax.profiler for TPU traces
+  - ``trace``: context manager around jax.profiler for device traces
     (view in TensorBoard / xprof).
   - ``throughput``: samples/sec helper used by the train drivers.
 """
@@ -45,7 +45,7 @@ class PhaseTimer:
 
 @contextlib.contextmanager
 def trace(logdir: str) -> Iterator[None]:
-    """Capture a jax.profiler trace (TPU HLO timeline) around a block."""
+    """Capture a jax.profiler trace (device HLO timeline) around a block."""
     import jax
 
     jax.profiler.start_trace(logdir)

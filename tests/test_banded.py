@@ -216,12 +216,28 @@ def test_line_banded_e2e_quality(comm_graph, order):
 
 
 def test_banded_auto_threshold_off_for_small_graphs(comm_graph):
-    """banded="auto" must stay on the regular path below the cliff."""
+    """banded="auto" must stay on the regular path below the threshold."""
     m = LINE(comm_graph, seed=0)
     m.init(dim=8, order=2)
     m.train(sample_times=0.01, batch=64, group=1, steps_per_call=4,
             verbose=False)  # banded="auto" default
     assert getattr(m, "banded_tables", None) is None
+
+
+@pytest.mark.parametrize("kw,want", [
+    (dict(banded=False), "unbanded"),
+    (dict(banded=True, band_size=BAND), "banded"),
+    (dict(banded=True, band_size=BAND, band_hold=True, hoist=2),
+     "banded, held band"),
+])
+def test_line_step_choice(comm_graph, kw, want):
+    """LINE names the step it built, and the options select it."""
+    m = LINE(comm_graph, seed=0)
+    m.init(dim=64, order=2)
+    m.train(sample_times=0.001, batch=128, group=1, shared_negatives=16,
+            steps_per_call=2, verbose=False, **kw)
+    assert m.step_name == want
+    assert np.isfinite(np.asarray(m.state["vertex"])).all()
 
 
 # ------------------------------------------------------------------ #
@@ -274,13 +290,11 @@ def test_banded_block_draw_law(comm_graph, group):
     assert 0.5 * np.abs(emp - pair_p).sum() < 0.05
 
 
-@pytest.mark.parametrize("group,negs_mode,fused",
-                         [(1, "in_band", False), (4, "in_band", False),
-                          (1, "disjoint_out", False),
-                          (4, "disjoint_out", False),
-                          (1, "disjoint_out", True)])
+@pytest.mark.parametrize("group,negs_mode",
+                         [(1, "in_band"), (4, "in_band"),
+                          (1, "disjoint_out"), (4, "disjoint_out")])
 def test_banded_block_equals_sequential_steps(comm_graph, group,
-                                              negs_mode, fused):
+                                              negs_mode):
     """S micro-steps through sgns_banded_block == S sequential
     sgns_shared_negs_step_banded calls on identical indices.
 
@@ -310,7 +324,6 @@ def test_banded_block_equals_sequential_steps(comm_graph, group,
     from smore_tpu.ops.update import sgns_banded_block
     gv, gc, _ = sgns_banded_block(
         wv, wc, sb, db, BAND, src, pos, negs, alphas, src_group=group,
-        fused=fused,
     )
 
     rv, rc = wv, wc

@@ -280,7 +280,7 @@ def test_cli_checkpoint_flag(tmp_path):
 
 
 def test_hogwild_mesh_kill_resume_is_step_identical(tmp_path):
-    """Round 5: checkpoint/resume under the hogwild mesh mode. The
+    """Checkpoint/resume under the hogwild mesh mode (banded step). The
     checkpoint carries the (n_dev, 2) per-device key ARRAY; resume must
     continue every device's stream where it left off -- kill-at-50%
     equals the uninterrupted mesh run exactly."""
@@ -292,8 +292,8 @@ def test_hogwild_mesh_kill_resume_is_step_identical(tmp_path):
     mesh = make_mesh(min(8, len(jax.devices())))
     kw = dict(sample_times=0.02, negative_samples=2, alpha=0.02,
               batch=128, steps_per_call=8, shared_negatives=16,
-              banded=True, multiband=True, band_size=64,
-              edge_stream=True, hoist=2, mesh=mesh, verbose=False)
+              banded=True, band_size=64,
+              hoist=2, mesh=mesh, verbose=False)
 
     m_ref = _make_model(net)
     m_ref.init(dim=64, order=2)

@@ -1,5 +1,5 @@
 """The driver's entry points must stay importable and runnable: entry()
-is compile-checked single-chip every round, dryrun_multichip(n) validates
+is compile-checked on one device, dryrun_multichip(n) validates
 the production multi-chip sharding on a virtual CPU mesh."""
 
 import sys
@@ -23,6 +23,6 @@ def test_entry_jits_and_runs():
 def test_dryrun_multichip_8():
     import __graft_entry__ as g
 
-    # exercises BOTH the rows (GSPMD row-sharded) and hogwild (banded
-    # multiblock production fast path) mesh modes; raises on failure
+    # exercises the dp, rows (GSPMD row-sharded) and hogwild (banded
+    # step) mesh modes; raises on failure
     g.dryrun_multichip(8)

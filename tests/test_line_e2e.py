@@ -76,3 +76,18 @@ def test_line_pretrain_roundtrip(toy_net_path, tmp_path):
     w2 = np.asarray(m2.state["vertex"])
     # 6-sig-digit text roundtrip
     np.testing.assert_allclose(w1, w2, rtol=1e-4, atol=1e-5)
+
+
+def test_driver_times_first_call_apart(toy_net_path):
+    """TrainDriver reports the executed samples, the wall time, the first
+    (compiling) call's time and the steady rate of the calls after it."""
+    m = LINE.load_edge_list(toy_net_path)
+    m.init(dim=8, order=2)
+    m.train(sample_times=0.002, batch=8, steps_per_call=50, group=1,
+            hoist=1, verbose=False)
+    d = m.last_driver
+    per_call = d.steps_per_call * d.samples_per_step
+    assert d.executed_samples >= 2000 and d.executed_samples % per_call == 0
+    assert d.executed_samples > per_call  # several calls
+    assert 0 < d.first_call_s < d.wall_s
+    assert d.steady_samples_per_s > 0

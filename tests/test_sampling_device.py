@@ -1,5 +1,5 @@
 """On-device sampler distribution tests (SamplerTables draws run under jit
-on the CPU test backend; same code path as TPU)."""
+on the CPU test backend; same code path as the GPU)."""
 
 import jax
 import jax.numpy as jnp
